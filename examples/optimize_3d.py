@@ -4,15 +4,15 @@ The reference's 3D training workload
 (``/root/reference/docs/notebooks/optimization_3D.ipynb`` cells 4, 23):
 generate a 32³ trajectory with known chemical potential / mobility, then
 recover their Legendre coefficients by Levenberg-Marquardt through the
-rollout.  Runs on TPU (f32) or CPU (x64); the whole batch of observation
+rollout.  Runs on the GPU (f32) or CPU (x64); the whole batch of observation
 windows integrates as one natively-batched scan.
 
 Usage: python examples/optimize_3d.py [--jit-lm] [--fused]
 
 ``--fused`` swaps the XLA-rfft semi-implicit stepper for
-:class:`pde_opt_tpu.ops.steppers.FusedMobilitySpectral` — the
-general-mobility cas-matmul fast path (no FFTs; measured ~10x+ the rfft
-path at 256x32^3 on v5e, see bench.py ``ch3d_mobility``).  Same scheme
+:class:`pde_opt_jax.ops.steppers.FusedMobilitySpectral` — the
+general-mobility cas-matmul path (no FFTs; bench.py ``ch3d_mobility``
+times both).  Same scheme
 order, FD-consistent symbol; gradients flow natively through the fused
 macro, so LM training runs on the fast path too.
 """
@@ -24,9 +24,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.models.cahn_hilliard import CahnHilliard3DPeriodic
-from pde_opt_tpu.models.functions import (
+import pde_opt_jax as p
+from pde_opt_jax.models.cahn_hilliard import CahnHilliard3DPeriodic
+from pde_opt_jax.models.functions import (
     ChemicalPotentialLegendrePolynomials,
     DiffusionLegendrePolynomials,
 )
@@ -37,7 +37,7 @@ def main():
     L = 0.01 * N
     domain = p.Domain((N, N, N), ((-L / 2, L / 2),) * 3)
     if "--fused" in sys.argv:
-        from pde_opt_tpu.ops.steppers import FusedMobilitySpectral
+        from pde_opt_jax.ops.steppers import FusedMobilitySpectral
 
         solver_type = FusedMobilitySpectral
     else:
@@ -86,4 +86,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

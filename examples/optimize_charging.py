@@ -5,16 +5,12 @@ Butler-Volmer cell (reference equations ``allen_cahn.py:213-281``): find a
 piecewise-constant C-rate schedule that reaches a target state of charge in
 fixed time while keeping lithiation *uniform* (suppressing the phase
 separation that damages electrodes). The schedule is optimized by direct
-gradient descent THROUGH the solver: the fused BV macro (``ops/bv_cas.py``)
-carries a custom VJP, so ``jax.grad`` flows through every RK4 substep and
-the per-segment C-rates get exact pathwise gradients.
+gradient descent THROUGH the solver: the XLA RK4 macro
+(``ops/bv_reference.py``) is a checkpointed scan, so ``jax.grad`` flows
+through every RK4 substep and the per-segment C-rates get exact pathwise
+gradients.
 
-On TPU the rollout is the Pallas kernel; on CPU this script uses the
-kernel's own jnp oracle (`bv_cc_reference` — the identical update, and
-exactly what the kernel's VJP recomputes through), since Pallas interpret
-mode is slow for long horizons.
-
-Run: python examples/optimize_charging.py  (CPU ~1 min; TPU seconds)
+Run: python examples/optimize_charging.py  (CPU ~1 min)
 """
 
 import argparse
@@ -29,7 +25,7 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-from pde_opt_tpu.ops.bv_cas import bv_cc_reference, make_bv_cc_fused_macro  # noqa: E402
+from pde_opt_jax.ops.bv_reference import bv_cc_reference  # noqa: E402
 
 
 def main():
@@ -51,11 +47,7 @@ def main():
     mu = lambda c: jnp.log(clip(c) / (1 - clip(c))) + 3.0 * (1.0 - 2.0 * c)
     j0 = lambda c: jnp.sqrt(jnp.clip(c * (1 - c), 1e-6, None))
 
-    if jax.default_backend() == "tpu":
-        macro = make_bv_cc_fused_macro(mu, j0, kappa, N, N, h, h, dt,
-                                       args.substeps)
-    else:
-        macro = bv_cc_reference(mu, j0, kappa, h, h, dt, args.substeps)
+    macro = bv_cc_reference(mu, j0, kappa, h, h, dt, args.substeps)
 
     u0 = jnp.clip(
         0.05 + 0.02 * jax.random.normal(jax.random.PRNGKey(0), (1, N, N)),
@@ -106,4 +98,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

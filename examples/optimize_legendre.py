@@ -18,8 +18,8 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import pde_opt_tpu as p
-from pde_opt_tpu.models.functions import (
+import pde_opt_jax as p
+from pde_opt_jax.models.functions import (
     ChemicalPotentialLegendrePolynomials,
     DiffusionLegendrePolynomials,
 )
@@ -77,4 +77,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

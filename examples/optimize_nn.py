@@ -4,7 +4,7 @@ Mirrors the reference's end-to-end NN training driver
 (``notebooks/optimize_nn_script.py:15-112``): generate Cahn-Hilliard data
 with a known Flory-Huggins μ, then fit a PeriodicCNN μ from snapshots.
 Small sizes by default so it runs on CPU in ~a minute; crank --grid/--steps
-on TPU.
+on the GPU.
 """
 
 import argparse
@@ -18,7 +18,7 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import pde_opt_tpu as p
+import pde_opt_jax as p
 
 
 def main():
@@ -68,4 +68,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,6 +1,6 @@
 """Co-located PPO on the 64x64 Cahn-Hilliard control fleet.
 
-The TPU-native counterpart of the reference's stable-baselines3 PPO notebook
+The on-device counterpart of the reference's stable-baselines3 PPO notebook
 (``/root/reference/notebooks/test_pde_RL.ipynb``): one jitted train step =
 on-device rollout over the whole env batch + GAE + minibatched clipped
 updates.  Scale ``--num-envs`` to the chip; wrap the env in
@@ -16,8 +16,8 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 
 import jax
 
-from pde_opt_tpu.envs import make_cahn_hilliard_control_env
-from pde_opt_tpu.rl import ActorCriticConv, PPOConfig, ppo_train
+from pde_opt_jax.envs import make_cahn_hilliard_control_env
+from pde_opt_jax.rl import ActorCriticConv, PPOConfig, ppo_train
 
 
 def main():
@@ -32,7 +32,7 @@ def main():
     ap.add_argument("--policy", type=str, default="conv",
                     choices=["conv", "mlp"],
                     help="conv torso (SB3 CnnPolicy parity) or the "
-                         "TPU-native flattened-MLP torso")
+                         "flattened-MLP torso")
     ap.add_argument("--num-envs", type=int, default=256)
     ap.add_argument("--grid", type=int, default=64)
     ap.add_argument("--substeps", type=int, default=10)
@@ -41,53 +41,48 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     args = ap.parse_args()
 
-    on_tpu = jax.default_backend() == "tpu"
     if args.env == "ch":
         env = make_cahn_hilliard_control_env(
             num_envs=args.num_envs, grid_size=args.grid,
             substeps=args.substeps, vectorized_control=True,
-            spectral_solve="fused" if on_tpu else "fft",
         )
     elif args.env == "ac":
-        from pde_opt_tpu.envs import make_allen_cahn_control_env
+        from pde_opt_jax.envs import make_allen_cahn_control_env
 
         env = make_allen_cahn_control_env(
             num_envs=args.num_envs, grid_size=args.grid,
             substeps=args.substeps,
-            spectral_solve="fused" if on_tpu else "fft",
         )
     elif args.env == "gpe":
-        from pde_opt_tpu.envs import make_gpe_control_env
+        from pde_opt_jax.envs import make_gpe_control_env
 
         env = make_gpe_control_env(
             num_envs=args.num_envs, grid_size=args.grid,
             substeps=args.substeps,
-            spectral_solve="fused" if on_tpu else "fft",
         )
     elif args.env == "gpe_rot":
-        from pde_opt_tpu.envs import make_gpe_rot_control_env
+        from pde_opt_jax.envs import make_gpe_rot_control_env
 
         env = make_gpe_rot_control_env(
             num_envs=args.num_envs, grid_size=args.grid,
             substeps=args.substeps,
-            spectral_solve="fused" if on_tpu else "fft",
         )
     elif args.env == "sbm_bv":
-        from pde_opt_tpu.envs import make_sbm_butler_volmer_control_env
+        from pde_opt_jax.envs import make_sbm_butler_volmer_control_env
 
         env = make_sbm_butler_volmer_control_env(
             num_envs=args.num_envs, grid_size=args.grid,
             substeps=args.substeps,
         )
     else:
-        from pde_opt_tpu.envs import make_butler_volmer_control_env
+        from pde_opt_jax.envs import make_butler_volmer_control_env
 
         env = make_butler_volmer_control_env(
             num_envs=args.num_envs, grid_size=args.grid,
             substeps=args.substeps,
         )
     if args.policy == "mlp":
-        from pde_opt_tpu.rl import ActorCriticMLP
+        from pde_opt_jax.rl import ActorCriticMLP
 
         obs = env.reset(jax.random.PRNGKey(0))[1]
         in_f = int(obs.shape[-3] * obs.shape[-2] * obs.shape[-1])
@@ -112,4 +107,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

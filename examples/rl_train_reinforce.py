@@ -24,8 +24,8 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-from pde_opt_tpu.envs import make_cahn_hilliard_control_env
-from pde_opt_tpu.models.functions.cnn import PeriodicCNN
+from pde_opt_jax.envs import make_cahn_hilliard_control_env
+from pde_opt_jax.models.functions.cnn import PeriodicCNN
 
 
 def main():
@@ -80,4 +80,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -13,7 +13,7 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import pde_opt_tpu as p
+import pde_opt_jax as p
 
 
 def main():
@@ -42,4 +42,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

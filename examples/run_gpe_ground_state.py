@@ -1,7 +1,7 @@
 """GPE imaginary-time ground state (reference: run_gpe notebooks / data asset).
 
 Computes the 2D BEC ground state via imaginary-time Strang splitting and can
-regenerate the ``pde_opt_tpu/data/ground_state.npy`` asset (the reference
+regenerate the ``pde_opt_jax/data/ground_state.npy`` asset (the reference
 ships the same artifact, ``pde_opt/data/ground_state.npy``).
 """
 
@@ -15,8 +15,8 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import pde_opt_tpu as p
-from pde_opt_tpu.utils import density, initialize_Psi
+import pde_opt_jax as p
+from pde_opt_jax.utils import density, initialize_Psi
 
 
 def compute_ground_state(N=256, save=None):
@@ -50,6 +50,9 @@ def compute_ground_state(N=256, save=None):
 
 
 if __name__ == "__main__":
+    from pde_opt_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--grid", type=int, default=256)
     ap.add_argument("--save", type=str, default=None)

@@ -4,17 +4,15 @@ Measures the flagship fleet (CH control env, fused cas kernel) under
 ``ShardedVectorPDEEnv`` at 1, 2, 4, ... N mesh shards with a FIXED number
 of envs per shard (weak scaling — the deployment shape), and reports
 efficiency against linear scaling from the 1-shard rate.  This is the
-harness behind the BASELINE ">=85% 1->N-host scaling" claim: on a TPU pod
-it measures the claim directly; on this rig it runs on the virtual CPU
-mesh to validate the harness itself.
+harness behind the BASELINE ">=85% 1->N scaling" claim.
 
-Pod-ready usage (real pod, one process per host):
-    python scripts/bench_scaling.py --distributed --devices 0 \
-        --envs-per-device 512 --grid 64 --steps 50
+On the GPUs of one host (one process drives all cards):
+    python scripts/bench_scaling.py --envs-per-device 4096 --grid 64 --steps 50
 
-Virtual-mesh validation (this rig):
-    PYTHONPATH= JAX_PLATFORMS=cpu \
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+Multi-host (one process per host): add ``--distributed``.
+
+Virtual-mesh validation of the harness itself, on the CPU:
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python scripts/bench_scaling.py --grid 16 --envs-per-device 16 \
         --steps 10 --substeps 2
 
@@ -39,20 +37,20 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--timed-runs", type=int, default=2)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host pod: call init_distributed() first")
+                   help="multi-host run: call init_distributed() first")
     args = p.parse_args(argv)
 
     if args.distributed:
-        from pde_opt_tpu.parallel.mesh import init_distributed
+        from pde_opt_jax.parallel.mesh import init_distributed
 
         init_distributed()
 
     import jax
     import jax.numpy as jnp
 
-    from pde_opt_tpu.envs.presets import make_cahn_hilliard_control_env
-    from pde_opt_tpu.parallel.mesh import make_mesh
-    from pde_opt_tpu.parallel.sharded_env import ShardedVectorPDEEnv
+    from pde_opt_jax.envs.presets import make_cahn_hilliard_control_env
+    from pde_opt_jax.parallel.mesh import make_mesh
+    from pde_opt_jax.parallel.sharded_env import ShardedVectorPDEEnv
 
     devices = jax.devices()
     n_max = args.devices or len(devices)
@@ -69,7 +67,6 @@ def main(argv=None):
         num_envs = args.envs_per_device * n_dev
         env = make_cahn_hilliard_control_env(
             num_envs=num_envs, grid_size=args.grid, substeps=args.substeps,
-            spectral_solve="fused", vectorized_control=True,
         )
         mesh = make_mesh(devices[:n_dev], axis_names=("env",))
         senv = ShardedVectorPDEEnv(env, mesh)
@@ -81,14 +78,14 @@ def main(argv=None):
         state, _ = senv.reset(jax.random.PRNGKey(n_dev))
         state, rewards, _ = senv.rollout(state, policy, args.steps,
                                          key=jax.random.PRNGKey(100 + n_dev))
-        _ = float(jnp.sum(rewards))            # compile + sync
+        jax.block_until_ready(rewards)          # compile + warm up
         t0 = time.perf_counter()
         for i in range(args.timed_runs):
             state, rewards, _ = senv.rollout(
                 state, policy, args.steps,
                 key=jax.random.PRNGKey(200 + n_dev + i),
             )
-        _ = float(jnp.sum(rewards))            # ONE trailing fetch
+        jax.block_until_ready(rewards)
         dt = time.perf_counter() - t0
         rate = num_envs * args.steps * args.timed_runs / dt
         results[n_dev] = rate

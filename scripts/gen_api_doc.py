@@ -9,12 +9,12 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-import pde_opt_tpu as p                      # noqa: E402
-import pde_opt_tpu.envs as envs              # noqa: E402
-import pde_opt_tpu.ops as ops                # noqa: E402
-import pde_opt_tpu.parallel as par           # noqa: E402
-import pde_opt_tpu.rl as rl                  # noqa: E402
-import pde_opt_tpu.utils as utils            # noqa: E402
+import pde_opt_jax as p                      # noqa: E402
+import pde_opt_jax.envs as envs              # noqa: E402
+import pde_opt_jax.ops as ops                # noqa: E402
+import pde_opt_jax.parallel as par           # noqa: E402
+import pde_opt_jax.rl as rl                  # noqa: E402
+import pde_opt_jax.utils as utils            # noqa: E402
 
 
 def one_liner(obj, name=""):
@@ -30,37 +30,40 @@ HEADER = """# API reference
 
 The complete public surface.  Every class docstring cites the reference
 `file:line` it is capability-parity with; symbols marked *(new)* are
-TPU-native capabilities beyond the reference.  Generated from the package
+capabilities beyond the reference.  Generated from the package
 docstrings (`python scripts/gen_api_doc.py` regenerates this file).
 """
 
 FOOTER = """## Extra (documented, not in `__all__`)
 
-- **`pde_opt_tpu.ops.fused_spectral.make_ch_sif_fused_macro`** — whole-macro-step
-  fused Pallas SIF kernel (see `docs/performance.md`).
-- **`pde_opt_tpu.ops.dft`** — dense/separable MXU spectral solves.
-- **`pde_opt_tpu.ops.fused.make_ch_rhs_fd_fused`** — fused Pallas FD RHS.
-- **`pde_opt_tpu.parallel.halo`** — `halo_pad_rows`, `sharded_lap_2nd_2d`,
+- **`pde_opt_jax.ops.cas_spectral.make_ch_cas_fused_macro`** — the
+  whole-macro-step Cahn-Hilliard kernel (Pallas, Triton; interpreted on
+  the CPU), with its optional env epilogue.
+- **`pde_opt_jax.ops.spectral_reference`** — plain-XLA oracles of the
+  semi-implicit macro-steps (`ch_sif_macro_reference`,
+  `ac_sif_macro_reference`).
+- **`pde_opt_jax.ops.dft`** — dense/separable matmul spectral solves.
+- **`pde_opt_jax.parallel.halo`** — `halo_pad_rows`, `sharded_lap_2nd_2d`,
   `distributed_fft2/ifft2`, `make_sharded_sif_ch_macro`.
-- **`pde_opt_tpu.utils.checkpoint`** — orbax save/restore/latest_step.
-- **`pde_opt_tpu.utils.metrics`** — `MetricLogger`, `Throughput`, `trace_scope`.
-- **`pde_opt_tpu.utils.rl`** — `density`, `detect_vortices` (plaquette winding).
-- **`pde_opt_tpu.utils.testing`** — `l2_rel_err`, `check_convergence`,
+- **`pde_opt_jax.utils.checkpoint`** — orbax save/restore/latest_step.
+- **`pde_opt_jax.utils.metrics`** — `MetricLogger`, `Throughput`, `trace_scope`.
+- **`pde_opt_jax.utils.rl`** — `density`, `detect_vortices` (plaquette winding).
+- **`pde_opt_jax.utils.testing`** — `l2_rel_err`, `check_convergence`,
   `fit_order`, `plot_convergence` (MMS harness).
-- **`pde_opt_tpu.models.symbolic`** — sympy manufactured-solution twins.
+- **`pde_opt_jax.models.symbolic`** — sympy manufactured-solution twins.
 """
 
 
 def main():
     out = [HEADER]
     sections = [
-        ("pde_opt_tpu", p, "Top-level: equations, grids, geometry, model, steppers"),
-        ("pde_opt_tpu.ops", ops, "Numerical kernels and integration drivers"),
-        ("pde_opt_tpu.envs", envs, "Batched envs, presets, Gymnasium adapters"),
-        ("pde_opt_tpu.rl", rl, "Co-located RL learners *(new)*"),
-        ("pde_opt_tpu.parallel", par,
+        ("pde_opt_jax", p, "Top-level: equations, grids, geometry, model, steppers"),
+        ("pde_opt_jax.ops", ops, "Numerical kernels and integration drivers"),
+        ("pde_opt_jax.envs", envs, "Batched envs, presets, Gymnasium adapters"),
+        ("pde_opt_jax.rl", rl, "Co-located RL learners *(new)*"),
+        ("pde_opt_jax.parallel", par,
          "Meshes, sharded fleets, spatial decomposition *(new)*"),
-        ("pde_opt_tpu.utils", utils, "Compat contract, pytrees, ICs, testing, aux"),
+        ("pde_opt_jax.utils", utils, "Compat contract, pytrees, ICs, testing, aux"),
     ]
     for modname, mod, blurb in sections:
         out.append(f"## `{modname}` — {blurb}\n")

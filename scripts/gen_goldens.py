@@ -1,7 +1,7 @@
 """Generate golden-trajectory fixtures for fixed-seed parity tests.
 
 Pure **numpy float64** re-derivations of the reference solver semantics —
-independent of jax and of the pde_opt_tpu package — rolled forward from
+independent of jax and of the pde_opt_jax package — rolled forward from
 committed initial conditions and saved to ``tests/goldens/*.npz``.  The
 parity tests (``tests/test_golden_parity.py``) then integrate the SAME
 initial conditions through this framework's steppers and assert array-level
@@ -426,7 +426,7 @@ def gen_gpe_rot():
     per-direction terms; this fixture pins the framework's
     ``DirectionalSplitting`` scheme (Strang-symmetric x/y sweeps, B at the
     post-sweep state, mid-step L2 renormalization in imaginary time —
-    ``pde_opt_tpu/ops/steppers.py:DirectionalSplitting.step``).
+    ``pde_opt_jax/ops/steppers.py:DirectionalSplitting.step``).
     """
     N = 64
     L = 20.0

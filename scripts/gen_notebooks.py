@@ -5,7 +5,7 @@ The reference ships its on-ramp as ~18 Jupyter notebooks
 wired into sphinx via nbsphinx, ``docs/index.rst:1-13``).  This framework's
 equivalent is a *generated, executed, tested* suite: every notebook below is
 produced from this script, executes top-to-bottom on CPU in seconds (crank
-the sizes on TPU), and is re-executed by ``tests/test_notebooks.py`` so the
+the sizes on a GPU), and is re-executed by ``tests/test_notebooks.py`` so the
 tutorials can never rot.
 
 Usage:
@@ -52,7 +52,7 @@ import jax.numpy as jnp
 import numpy as np
 import matplotlib.pyplot as plt
 
-import pde_opt_tpu as p
+import pde_opt_jax as p
 print("backend:", jax.default_backend(), "| devices:", len(jax.devices()))
 """
 
@@ -76,7 +76,7 @@ def _nb01():
 
         Mirrors the reference workflow in
         `notebooks/run_cahn_hilliard.ipynb`; sizes here are small so the
-        notebook executes in seconds on CPU — on a TPU chip, 256² with
+        notebook executes in seconds on CPU — on a GPU, 256² with
         thousands of saves is just as much one compiled region.
         """),
         code(SETUP),
@@ -228,7 +228,7 @@ def _nb03():
         code(SETUP),
         code("""
         # Precision note: this is a tight-tolerance oracle; run it in f64 on
-        # CPU (the TPU-side check lives in the golden-parity tests at f32).
+        # CPU (the f32 check lives in the golden-parity tests).
         jax.config.update("jax_enable_x64", True)
 
         KAPPA = 0.002
@@ -297,8 +297,8 @@ def _nb04():
         code(SETUP),
         code("""
         import sympy as sp
-        from pde_opt_tpu.models.symbolic import SymbolicCahnHilliard2DPeriodic
-        from pde_opt_tpu.utils.testing import check_convergence, plot_convergence
+        from pde_opt_jax.models.symbolic import SymbolicCahnHilliard2DPeriodic
+        from pde_opt_jax.utils.testing import check_convergence, plot_convergence
 
         x, y, t = sp.symbols("x y t", real=True)
         u_star = sp.sin(2 * x) * sp.cos(3 * y) * sp.exp(-sp.Rational(7, 10) * t)
@@ -329,7 +329,7 @@ def _nb04():
         `MMS` works for any operator — here a bespoke reaction-diffusion:
         """),
         code("""
-        from pde_opt_tpu.models.symbolic import MMS, sym_lap
+        from pde_opt_jax.models.symbolic import MMS, sym_lap
 
         def reaction_diffusion_op(u, syms, t):
             return 0.1 * sym_lap(u, syms) + u - u ** 3
@@ -367,7 +367,7 @@ def _nb05():
         """),
         code(SETUP),
         code("""
-        from pde_opt_tpu.ops.boundary import laplacian
+        from pde_opt_jax.ops.boundary import laplacian
 
         # Dirichlet-0 walls: sin(pi x) is an eigenfunction of the Laplacian,
         # so heat flow just decays it at the exact rate pi^2.
@@ -563,9 +563,8 @@ def _nb07():
         (see `tests/test_butler_volmer.py`) — which is what lets
         Butler-Volmer env fleets run in lockstep:
         `make_butler_volmer_control_env` turns this physics into an RL
-        charging-protocol problem (the agent drives the C-rate), and its
-        fused Pallas kernel (`ops/bv_cas.py`, in-kernel RK4 + closure) runs
-        **307k env-steps/s** at 2048×64² on one v5e — 12.5× the XLA path.
+        charging-protocol problem (the agent drives the C-rate), stepped
+        by the same XLA RK4 path as this notebook.
         """),
     ]
 
@@ -584,14 +583,14 @@ def _nb08():
         renormalization) relaxes a trapped condensate to its ground state;
         in the strong-interaction limit the density approaches the
         Thomas-Fermi profile. The wavefunction is stored real-stacked
-        `(..., 2)` so every kernel stays in real dtypes on the MXU.
+        `(..., 2)` so every kernel stays in real dtypes.
 
         Mirrors `notebooks/test_thomas_fermi.ipynb` and the `run_gpe`
         workloads (physical constants as in the reference's ⁸⁷Rb-like setup).
         """),
         code(SETUP),
         code("""
-        from pde_opt_tpu.utils import density, initialize_Psi
+        from pde_opt_jax.utils import density, initialize_Psi
 
         # Physical scales (as in tests/test_solvers.py::..._thomas_fermi).
         atoms, hbar = 5e5, 1.05e-34
@@ -646,7 +645,7 @@ def _nb08():
         functions):
         """),
         code("""
-        from pde_opt_tpu.utils.rl import detect_vortices
+        from pde_opt_jax.utils.rl import detect_vortices
 
         psi_v = initialize_Psi(N, width=N // 3, vortexnumber=1)
         out = detect_vortices(psi_v,
@@ -662,8 +661,7 @@ def _nb08():
         (`GPE2DTSRot`, $\\Omega L_z$ term) integrates with the
         `DirectionalSplitting` stepper — see `tests/test_gpe_rot.py`. The
         RL control preset (`make_gpe_control_env`) drives an optical spot
-        through the same physics at fleet scale on the fused cas kernel
-        (~760k env-steps/s at 1024×64² on one v5e chip — `bench.py`).
+        through the same physics at fleet scale (`bench.py` times it).
         """),
     ]
 
@@ -716,7 +714,7 @@ def _nb09():
         code("""
         # Adaptive Tsit5 + PID on a problem with a fast transient:
         #   u' = -50 (u - cos t),  u(0) = 0.
-        from pde_opt_tpu.ops import integrate_adaptive
+        from pde_opt_jax.ops import integrate_adaptive
 
         lam = 50.0
         rhs_fast = lambda u, t: -lam * (u - jnp.cos(t))
@@ -755,8 +753,8 @@ def _nb10():
         Levenberg-Marquardt (forward-mode JVPs → normal equations) for small
         parameter vectors, Adam / L-BFGS (checkpointed reverse-mode) for
         NN-sized ones. `method="least_squares_jit"` runs LM entirely inside
-        one `lax.while_loop` — zero per-iteration host sync, the TPU-resident
-        training loop.
+        one `lax.while_loop` — zero per-iteration host sync, the
+        device-resident training loop.
 
         Mirrors `notebooks/test_optimization_model.ipynb`.
         """),
@@ -840,9 +838,8 @@ def _nb11():
 
         Mirrors `docs/notebooks/optimization_neural_network.ipynb` and
         `notebooks/optimize_nn_script.py` in the reference (which reports
-        ~4 min / 100 steps at 32²; the fused TPU path trains the same
-        problem at 2.6M grad-env-substeps/s — `bench.py`'s
-        `train_grad` config).
+        ~4 min / 100 steps at 32²; `bench.py`'s `train_grad` config
+        times the same gradient path at fleet scale).
         """),
         code(SETUP),
         code("""
@@ -890,7 +887,7 @@ def _nb11():
         1000 BFGS steps at 128² on a GPU (`run_training.sh`). Here
         `method="mse"` gives optax L-BFGS with zoom line search; everything
         stays one compiled graph per optimizer step. `Mixer2d` (MLP-mixer)
-        is the other NN family in `pde_opt_tpu.models.functions`.
+        is the other NN family in `pde_opt_jax.models.functions`.
         """),
     ]
 
@@ -911,16 +908,15 @@ def _nb12():
         then recover both coefficient vectors by Levenberg-Marquardt through
         the rollout. This notebook runs a 16³ miniature so it executes in
         seconds; `examples/optimize_3d.py` is the full 32³ driver, and the
-        batched 3D spectral path has a cas-matmul Pallas kernel
-        (`ops/cas3d.py`, ~30× the XLA-FFT path at 32³ on one v5e —
-        see `bench.py`).
+        batched 3D spectral path has a cas-matmul macro
+        (`ops/cas3d.py`; `bench.py` times it against the XLA-FFT path).
         """),
         code(SETUP),
         code("""
-        from pde_opt_tpu.models.cahn_hilliard import CahnHilliard3DPeriodic
+        from pde_opt_jax.models.cahn_hilliard import CahnHilliard3DPeriodic
 
         # LM normal equations through a 4th-order operator are sensitive to
-        # rounding at miniature scale; run this CPU demo in f64 (the TPU
+        # rounding at miniature scale; run this CPU demo in f64 (the GPU
         # path trains in f32 with the longer trajectories of
         # examples/optimize_3d.py).
         jax.config.update("jax_enable_x64", True)
@@ -974,12 +970,10 @@ def _nb12():
 
         Concentration-dependent mobility D(c) ≠ 1 rules out every
         unit-mobility fused kernel, but not the cas transforms:
-        `FusedMobilitySpectral` runs the conservative face-flux rhs as a
-        single fused Pallas kernel (XLA rolls on CPU) and the stabilized
-        implicit solve as cas matmuls — measured 5.4× the XLA-rfft
-        stepper on this exact Legendre workload at 256×32³ on one v5e
-        (`bench.py ch3d_mobility`). Gradients flow natively on the
-        `rhs_impl="xla"` path (pass `--fused` to
+        `FusedMobilitySpectral` runs the conservative face-flux rhs as
+        XLA-fused rolls and the stabilized implicit solve as cas matmuls
+        (`bench.py ch3d_mobility` times it against the XLA-rfft stepper).
+        Gradients flow natively (pass `--fused` to
         `examples/optimize_3d.py` for the full workload).
 
         **Stabilization with non-unit mobility.** Both semi-implicit
@@ -992,7 +986,7 @@ def _nb12():
         to over-relax the FD-symbol shift the same way.
         """),
         code("""
-        from pde_opt_tpu.ops.steppers import FusedMobilitySpectral
+        from pde_opt_jax.ops.steppers import FusedMobilitySpectral
 
         sol_ref = model.solve(
             {"kappa": 0.002, "mu": mu, "D": true_D, "derivs": "fd"},
@@ -1030,7 +1024,8 @@ def _nb13():
           jitted functions over an `EnvState` pytree with a leading env
           axis; `rollout` fuses whole episodes (physics + reward +
           auto-reset) into one on-device scan.
-        * `PDEEnv` (`gym.make("PDEEnv-v0", ...)`) — a Gymnasium adapter with
+        * `PDEEnv` (`gym.make("PDEEnv-v0", ...)` once
+          `pde_opt_jax.envs.gym_adapter` is imported) — a Gymnasium adapter with
           the reference's exact constructor, for SB3-style host loops.
 
         The reference env rebuilt the equation + solver and re-entered
@@ -1039,7 +1034,7 @@ def _nb13():
         """),
         code(SETUP),
         code("""
-        from pde_opt_tpu.envs import make_cahn_hilliard_control_env
+        from pde_opt_jax.envs import make_cahn_hilliard_control_env
 
         env = make_cahn_hilliard_control_env(num_envs=32, grid_size=32,
                                              substeps=5)
@@ -1076,6 +1071,7 @@ def _nb13():
         """),
         code("""
         import gymnasium as gym
+        import pde_opt_jax.envs.gym_adapter  # registers "PDEEnv-v0"
 
         N = 16
         L = 0.01 * N
@@ -1131,12 +1127,12 @@ def _nb14():
         *co-located*: rollout (physics included), GAE, minibatched
         clipped-surrogate epochs, and the optimizer all compile into ONE
         jitted train step over the batched env — the host only reads back
-        scalar metrics. DQN and DDPG learners live in `pde_opt_tpu.rl` too.
+        scalar metrics. DQN and DDPG learners live in `pde_opt_jax.rl` too.
         """),
         code(SETUP),
         code("""
-        from pde_opt_tpu.envs import make_cahn_hilliard_control_env
-        from pde_opt_tpu.rl import ActorCriticConv, PPOConfig, ppo_train
+        from pde_opt_jax.envs import make_cahn_hilliard_control_env
+        from pde_opt_jax.rl import ActorCriticConv, PPOConfig, ppo_train
 
         env = make_cahn_hilliard_control_env(num_envs=16, grid_size=16,
                                              substeps=2)
@@ -1170,9 +1166,8 @@ def _nb14():
         *through the PDE*: you can train a policy by direct analytic
         gradient of the reward instead of (or alongside) the score function
         — see `examples/rl_train_reinforce.py` and
-        `tests/test_fused_grad.py`. At bench scale this path runs at
-        2.6M grad-env-substeps/s on one v5e chip (3.9× the non-fused
-        gradient).
+        `tests/test_fused_grad.py` (`bench.py`'s `train_grad` config times
+        it at fleet scale).
 
         Scaling up: pass `mesh=make_mesh()` to `ppo_train` for data-parallel
         learners over a device mesh (next notebook).
@@ -1195,10 +1190,11 @@ def _nb15():
         over ICI/DCN); the learner is co-located and `psum`s gradients.
         Spatial decomposition of a single huge grid (halo exchange +
         transpose FFT — the PDE analog of sequence parallelism) lives in
-        `pde_opt_tpu.parallel.halo`.
+        `pde_opt_jax.parallel.halo`.
 
         This notebook runs on virtual CPU devices; the same code runs
-        unchanged on a TPU pod after `init_distributed(...)`.
+        unchanged on several GPUs (and hosts, after
+        `init_distributed(...)`).
         """),
         code("""
         import os, sys
@@ -1214,12 +1210,12 @@ def _nb15():
         import numpy as np
         import matplotlib.pyplot as plt
 
-        import pde_opt_tpu as p
+        import pde_opt_jax as p
         print("devices:", len(jax.devices()))
         """),
         code("""
-        from pde_opt_tpu.envs import make_cahn_hilliard_control_env
-        from pde_opt_tpu.parallel import ShardedVectorPDEEnv, make_mesh
+        from pde_opt_jax.envs import make_cahn_hilliard_control_env
+        from pde_opt_jax.parallel import ShardedVectorPDEEnv, make_mesh
 
         n_dev = len(jax.devices())
         env = make_cahn_hilliard_control_env(num_envs=4 * n_dev, grid_size=16,
@@ -1259,7 +1255,7 @@ def _nb15():
         """),
         code("""
         import tempfile
-        from pde_opt_tpu.utils.checkpoint import save_checkpoint, restore_checkpoint
+        from pde_opt_jax.utils.checkpoint import save_checkpoint, restore_checkpoint
 
         with tempfile.TemporaryDirectory() as d:
             save_checkpoint(d, step=10, tree={"env_y": state_s.y,
@@ -1274,8 +1270,7 @@ def _nb15():
 
         * `docs/parallelism.md` — the mesh layout, the halo/transpose-FFT
           spatial decomposition, and the 1→N-host scaling model.
-        * `docs/performance.md` — the kernel optimization history, roofline
-          accounting, and `bench.py`'s config matrix.
+        * `PERF.md` — what has been measured on the H100, and the findings.
         * `examples/` — script versions of every workload in this series.
         """),
     ]
@@ -1296,7 +1291,7 @@ def _nb16():
         axis. Finite-difference stencils then need one ring `ppermute`
         halo exchange per evaluation; pseudo-spectral operators need a
         distributed FFT — local FFT → `all_to_all` transpose → local FFT,
-        the TPU-native shape of a 2D FFT across ICI.
+        the natural shape of a 2D FFT across devices.
 
         Everything here runs inside `shard_map`; this notebook uses 8
         virtual CPU devices (same code on a real mesh). The reference has
@@ -1316,7 +1311,7 @@ def _nb16():
         import matplotlib.pyplot as plt
         from jax.sharding import PartitionSpec as P
 
-        from pde_opt_tpu.parallel.mesh import make_mesh, shard_map
+        from pde_opt_jax.parallel.mesh import make_mesh, shard_map
         n_dev = len(jax.devices())
         mesh = make_mesh(axis_names=("space",))
         print("devices:", n_dev)
@@ -1329,8 +1324,8 @@ def _nb16():
         stencil — the results agree exactly:
         """),
         code("""
-        from pde_opt_tpu.ops.stencils import lap_2nd_2d
-        from pde_opt_tpu.parallel.halo import sharded_lap_2nd_2d
+        from pde_opt_jax.ops.stencils import lap_2nd_2d
+        from pde_opt_jax.parallel.halo import sharded_lap_2nd_2d
 
         N = 64
         u = jax.random.normal(jax.random.PRNGKey(0), (N, N))
@@ -1353,7 +1348,7 @@ def _nb16():
         want for applying spectral multipliers locally:
         """),
         code("""
-        from pde_opt_tpu.parallel.halo import distributed_fft2, distributed_ifft2
+        from pde_opt_jax.parallel.halo import distributed_fft2, distributed_ifft2
 
         f = jax.random.normal(jax.random.PRNGKey(1), (N, N))
         fhat = jax.jit(shard_map(
@@ -1374,8 +1369,8 @@ def _nb16():
         spreads across all 8 devices and matches the single-device run:
         """),
         code("""
-        from pde_opt_tpu.parallel.halo import make_sharded_sif_ch_macro
-        from pde_opt_tpu.ops.fused_spectral import ch_sif_macro_reference
+        from pde_opt_jax.parallel.halo import make_sharded_sif_ch_macro
+        from pde_opt_jax.ops.spectral_reference import ch_sif_macro_reference
 
         N = 256
         mu = lambda c: c**3 - c
@@ -1422,11 +1417,10 @@ def _nb17():
         capability twice over:
 
         * `DirectionalSplitting` — the FFT ADI split-step (Bao & Cai);
-        * `FusedRotatingSplitting` — the TPU fast path: each directional
+        * `FusedRotatingSplitting` — the matmul path: each directional
           sweep is a precomputed per-grid-line dense propagator applied as
-          one batched MXU contraction (~2× the FFT path at 512×64² on
-          v5e), with adjacent Strang half-sweeps merged across the
-          segment.
+          one batched contraction, with adjacent Strang half-sweeps merged
+          across the segment.
 
         On top sits the sixth RL env family:
         `make_gpe_rot_control_env`, where the agent drives a co-rotating
@@ -1435,10 +1429,10 @@ def _nb17():
         """),
         code(SETUP),
         code("""
-        from pde_opt_tpu.ops.steppers import (DirectionalSplitting,
+        from pde_opt_jax.ops.steppers import (DirectionalSplitting,
                                               FusedRotatingSplitting)
-        from pde_opt_tpu.utils import density, initialize_Psi
-        from pde_opt_tpu.utils.rl import detect_vortices
+        from pde_opt_jax.utils import density, initialize_Psi
+        from pde_opt_jax.utils.rl import detect_vortices
 
         N, L = 32, 16.0
         domain = p.Domain((N, N), ((-L / 2, L / 2), (-L / 2, L / 2)))
@@ -1482,7 +1476,7 @@ def _nb17():
         scratch in `tests/test_gpe_rot_env.py`.
         """),
         code("""
-        from pde_opt_tpu.envs import make_gpe_rot_control_env
+        from pde_opt_jax.envs import make_gpe_rot_control_env
 
         env = make_gpe_rot_control_env(num_envs=8, grid_size=32,
                                        substeps=4, end_time=0.32,

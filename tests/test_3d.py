@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import sympy as sp
 
-import pde_opt_tpu as p
-from pde_opt_tpu.models.cahn_hilliard import CahnHilliard3DPeriodic
-from pde_opt_tpu.models.functions import DiffusionLegendrePolynomials
-from pde_opt_tpu.models.symbolic import SymbolicCahnHilliard3DPeriodic
-from pde_opt_tpu.utils.testing import check_convergence, fit_order
+import pde_opt_jax as p
+from pde_opt_jax.models.cahn_hilliard import CahnHilliard3DPeriodic
+from pde_opt_jax.models.functions import DiffusionLegendrePolynomials
+from pde_opt_jax.models.symbolic import SymbolicCahnHilliard3DPeriodic
+from pde_opt_jax.utils.testing import check_convergence, fit_order
 
 MU = lambda c: c**3 - c
 DCONST = lambda c: jnp.ones_like(c)
@@ -140,7 +140,7 @@ def test_train_legendre_mobility_3d():
 
 def test_ch3d_cas_macro_matches_fft_oracle():
     """3D cas-matmul macro == jnp.fft oracle (exact semantics at f32)."""
-    from pde_opt_tpu.ops.cas3d import (
+    from pde_opt_jax.ops.cas3d import (
         ch3d_sif_macro_reference,
         make_ch3d_cas_macro,
     )
@@ -163,7 +163,7 @@ def test_ch3d_cas_macro_matches_fft_oracle():
 
 
 def test_ch3d_cas_stepper_through_model_solve():
-    from pde_opt_tpu.ops.steppers import FusedSemiImplicitSpectral3D
+    from pde_opt_jax.ops.steppers import FusedSemiImplicitSpectral3D
 
     domain = _domain3(16)
     model = p.PDEModel(CahnHilliard3DPeriodic, domain,

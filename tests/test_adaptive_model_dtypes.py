@@ -1,12 +1,12 @@
 """Adaptive-driver parity on the PDEModel.solve(PIDController) path under
-TPU dtypes (VERDICT r3 item 9).
+accelerator dtypes.
 
 ``tests/test_adaptive_saves.py`` pins the low-level ``integrate_adaptive``
 save cursor on adversarial f32 grids; this file drives the same guarantees
 through the USER path — ``PDEModel.solve(..., stepsize_controller=
 PIDController)`` (the reference's diffrax usage,
 ``/root/reference/pde_opt/pde_model.py:77``) — under f32 and bf16 state,
-mirroring the mixed-precision conditions of the TPU fast path: save-point
+mirroring the mixed-precision conditions of the accelerator fast path: save-point
 exactness, dtype stability of the carried state, and agreement with the
 fixed-step rollout.
 """
@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.ops.integrate import PIDController
+import pde_opt_jax as p
+from pde_opt_jax.ops.integrate import PIDController
 
 N = 16
 L = 0.16

@@ -41,16 +41,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_opt_tpu.grid import Domain
-from pde_opt_tpu.models.allen_cahn import (
+from pde_opt_jax.grid import Domain
+from pde_opt_jax.models.allen_cahn import (
     AllenCahn2DPeriodicButlerVolmerConstantCurrent,
     AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
 )
-from pde_opt_tpu.models.gross_pitaevskii import GPE2DTSRot
-from pde_opt_tpu.ops.bv_cas import bv_cc_reference
-from pde_opt_tpu.ops.steppers import DirectionalSplitting
+from pde_opt_jax.models.gross_pitaevskii import GPE2DTSRot
+from pde_opt_jax.ops.bv_reference import bv_cc_reference
+from pde_opt_jax.ops.steppers import DirectionalSplitting
 
-# Same coefficient functions the BV fused-kernel tests use.
+# The BV charging preset's coefficient functions.
 CLIP = lambda c: jnp.clip(c, 1e-4, 1 - 1e-4)  # noqa: E731
 MU = lambda c: jnp.log(CLIP(c) / (1 - CLIP(c))) + 3.0 * (1.0 - 2.0 * c)  # noqa: E731
 J0 = lambda c: jnp.sqrt(jnp.clip(c * (1 - c), 1e-6, None))  # noqa: E731
@@ -112,9 +112,7 @@ def test_bv_cc_rhs_linear_response_matches_analytic(c0, m, axis):
 
 def test_bv_cc_rk4_oracle_amplification_matches_analytic():
     """The RK4 macro's per-mode amplification over n steps must equal the
-    RK4 stability polynomial of the analytic rate: r(-lam*dt)^n.  The fused
-    Pallas macro is pinned to this oracle at 2e-5 by test_bv_cas, so the
-    analytic anchor transfers to the kernel."""
+    RK4 stability polynomial of the analytic rate: r(-lam*dt)^n."""
     N, m = 32, 2
     kappa, dt, n = 5e-4, 2e-3, 25
     c0 = 0.1
@@ -178,8 +176,8 @@ def test_ch_sif_mode_amplification_matches_closed_form(derivs, c0, mode):
     update ``solvers.py:56-70``, flagship CH family).  dt is chosen so the
     denominator deviates from 1 by ~50%, pinning the stabilization term's
     sign and magnitude, not just the explicit rhs."""
-    from pde_opt_tpu.models.cahn_hilliard import CahnHilliard2DPeriodic
-    from pde_opt_tpu.ops.steppers import SemiImplicitFourierSpectral
+    from pde_opt_jax.models.cahn_hilliard import CahnHilliard2DPeriodic
+    from pde_opt_jax.ops.steppers import SemiImplicitFourierSpectral
 
     N, kappa, A, dt = 64, 5e-4, 1.0, 1e-3
     L = 1.0
@@ -220,8 +218,8 @@ def test_ch_sif_mode_amplification_matches_closed_form(derivs, c0, mode):
 def test_ch3d_sif_mode_amplification_matches_closed_form(derivs):
     """Same closed-form semi-implicit gain as the 2D case, for the 3D family
     (reference ``cahn_hilliard.py:112-200``) on a mixed (m,n,p) plane wave."""
-    from pde_opt_tpu.models.cahn_hilliard import CahnHilliard3DPeriodic
-    from pde_opt_tpu.ops.steppers import SemiImplicitFourierSpectral
+    from pde_opt_jax.models.cahn_hilliard import CahnHilliard3DPeriodic
+    from pde_opt_jax.ops.steppers import SemiImplicitFourierSpectral
 
     N, kappa, A, dt = 24, 1e-3, 1.0, 2e-3
     L = 1.0
@@ -262,7 +260,7 @@ def test_ac_rhs_linear_response_matches_analytic(derivs):
     """Allen-Cahn linear response around the stable well c0=1 (mu(c0)=0, so
     the R'(c0) term drops): d(delta)/dt = -R(c0)*(mu'(c0) - kappa*L)*delta,
     checking the R-mobility coupling the tanh-interface oracle is blind to."""
-    from pde_opt_tpu.models.allen_cahn import AllenCahn2DPeriodic
+    from pde_opt_jax.models.allen_cahn import AllenCahn2DPeriodic
 
     N, kappa, m = 64, 5e-4, 4
     L = 1.0

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pde_opt_tpu.ops.boundary import get_neighbor_indices, laplacian
+from pde_opt_jax.ops.boundary import get_neighbor_indices, laplacian
 
 
 def test_periodic_1d_matches_circulant():

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
+import pde_opt_jax as p
 
 N = 32
 L = 1.0
@@ -79,7 +79,7 @@ def test_sbm_constant_current_conservation():
     interior; the reference computes the same ψ-weighted integrals,
     ``allen_cahn.py:340-354``.)
     """
-    from pde_opt_tpu.geometry import Shape
+    from pde_opt_jax.geometry import Shape
 
     mask = np.zeros((N, N))
     yy, xx = np.mgrid[0:N, 0:N]

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pde_opt_tpu.ops.cas_mobility import (
+from pde_opt_jax.ops.cas_mobility import (
     ch3d_mobility_macro_reference,
     ch_mobility_macro_reference,
     make_ch3d_mobility_cas_macro,
@@ -37,7 +37,7 @@ def test_2d_matches_fft_oracle_per_env_kappa():
 def test_2d_unit_mobility_matches_sif_scheme():
     """With D ≡ 1 the roll-rhs + cas-solve update is algebraically the
     unit-mobility SIF scheme (C[lap_roll z] = λ·C[z] exactly)."""
-    from pde_opt_tpu.ops.fused_spectral import ch_sif_macro_reference
+    from pde_opt_jax.ops.spectral_reference import ch_sif_macro_reference
 
     u = _u2d(B=3, seed=1)
     N = u.shape[-1]
@@ -135,11 +135,11 @@ def test_3d_stab_scale_stabilizes_large_mobility():
 
 
 def test_stepper_dispatches_rank_and_matches_macro():
-    from pde_opt_tpu.grid import Domain
-    from pde_opt_tpu.models.cahn_hilliard import CahnHilliard2DPeriodic
-    from pde_opt_tpu.ops.integrate import evolve
-    from pde_opt_tpu.ops.steppers import FusedMobilitySpectral
-    from pde_opt_tpu.utils.compat import prepare_solver_params
+    from pde_opt_jax.grid import Domain
+    from pde_opt_jax.models.cahn_hilliard import CahnHilliard2DPeriodic
+    from pde_opt_jax.ops.integrate import evolve
+    from pde_opt_jax.ops.steppers import FusedMobilitySpectral
+    from pde_opt_jax.utils.compat import prepare_solver_params
 
     u = _u2d(B=3, seed=7)
     N = u.shape[-1]
@@ -160,56 +160,33 @@ def test_stepper_dispatches_rank_and_matches_macro():
                                rtol=0, atol=1e-6)
 
 
-def test_2d_pallas_rhs_matches_xla_macro():
-    """rhs_impl='pallas' (fused single-pass rhs kernel, interpret mode on
-    CPU) must match the XLA-roll macro, and state/kappa grads must flow
-    through its oracle VJP."""
+def test_2d_flux_rhs_matches_model_rhs():
+    """The macro's conservative flux rhs == CahnHilliard2DPeriodic.rhs_fd
+    with a per-env kappa."""
+    from pde_opt_jax.grid import Domain
+    from pde_opt_jax.models.cahn_hilliard import CahnHilliard2DPeriodic
+    from pde_opt_jax.ops.cas_mobility import _flux_div_rhs
+
     u = _u2d(B=3, N=16, seed=8)
-    h = 1.0 / 16
-    kap = jnp.linspace(2e-3, 6e-3, 3)
-    fast = make_ch_mobility_cas_macro(MU, D, 16, 16, h, h, 1.0, 1e-5, 4,
-                                      mats_dtype=jnp.float32,
-                                      rhs_impl="pallas")
-    ref = make_ch_mobility_cas_macro(MU, D, 16, 16, h, h, 1.0, 1e-5, 4,
-                                     mats_dtype=jnp.float32, rhs_impl="xla")
-    np.testing.assert_allclose(np.asarray(fast(u, kap)),
-                               np.asarray(ref(u, kap)), rtol=0, atol=2e-5)
-    gu_f, gk_f = jax.grad(lambda a, k: jnp.sum(fast(a, k) ** 2),
-                          argnums=(0, 1))(u, kap)
-    gu_r, gk_r = jax.grad(lambda a, k: jnp.sum(ref(a, k) ** 2),
-                          argnums=(0, 1))(u, kap)
-    np.testing.assert_allclose(np.asarray(gu_f), np.asarray(gu_r),
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(gk_f), np.asarray(gk_r),
-                               rtol=1e-4, atol=1e-8)
+    L = 0.16
+    h = L / 16
+    kap = jnp.linspace(2e-3, 6e-3, 3).reshape(3, 1, 1)
+    domain = Domain((16, 16), ((-L / 2, L / 2),) * 2, "dimensionless",
+                    dtype=jnp.float32)
+    eq = CahnHilliard2DPeriodic(domain, kap, MU, D, derivs="fd")
+    rhs = _flux_div_rhs(MU, D, kap, (h, h), (-2, -1))
+    ref = np.asarray(eq.rhs(u, 0.0), np.float64)
+    # rhs values scale like 1/h^4; compare at f32 resolution relative to
+    # the field's own magnitude.
+    np.testing.assert_allclose(np.asarray(rhs(u), np.float64), ref,
+                               rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
-def test_3d_pallas_rhs_matches_xla_macro():
-    """The folded-lane 3D rhs kernel (z-rolls as two rotations + seam
-    mask) must match the XLA-roll macro bit-for-tolerance."""
-    rng = np.random.default_rng(9)
-    B, N = 2, 8
-    u = jnp.asarray(0.5 + 0.05 * rng.standard_normal((B, N, N, N)),
-                    jnp.float32)
-    h = 1.0 / N
-    kap = jnp.asarray([2e-3, 6e-3])
-    fast = make_ch3d_mobility_cas_macro(MU, D, N, N, N, h, h, h,
-                                        1.0, 1e-6, 4,
-                                        mats_dtype=jnp.float32,
-                                        rhs_impl="pallas")
-    ref = make_ch3d_mobility_cas_macro(MU, D, N, N, N, h, h, h,
-                                       1.0, 1e-6, 4,
-                                       mats_dtype=jnp.float32,
-                                       rhs_impl="xla")
-    np.testing.assert_allclose(np.asarray(fast(u, kap)),
-                               np.asarray(ref(u, kap)), rtol=0, atol=2e-5)
-
-
-def test_3d_fused_rhs_kernel_matches_model_rhs():
-    """The raw 3D fused rhs kernel vs CahnHilliard3DPeriodic.rhs_fd."""
-    from pde_opt_tpu.grid import Domain
-    from pde_opt_tpu.models.cahn_hilliard import CahnHilliard3DPeriodic
-    from pde_opt_tpu.ops.fused import make_ch3d_rhs_fd_fused
+def test_3d_flux_rhs_matches_model_rhs():
+    """The 3D flux rhs == CahnHilliard3DPeriodic.rhs_fd."""
+    from pde_opt_jax.grid import Domain
+    from pde_opt_jax.models.cahn_hilliard import CahnHilliard3DPeriodic
+    from pde_opt_jax.ops.cas_mobility import _flux_div_rhs
 
     rng = np.random.default_rng(10)
     B, N = 3, 8
@@ -220,9 +197,30 @@ def test_3d_fused_rhs_kernel_matches_model_rhs():
     domain = Domain((N, N, N), ((-L / 2, L / 2),) * 3, "dimensionless",
                     dtype=jnp.float32)
     eq = CahnHilliard3DPeriodic(domain, 3e-3, MU, D, derivs="fd")
-    fused = make_ch3d_rhs_fd_fused(MU, D, h, h, h, interpret=True)
+    rhs = _flux_div_rhs(MU, D, 3e-3, (h, h, h), (-3, -2, -1))
     ref = np.asarray(eq.rhs(u, 0.0), np.float64)
-    # rhs values scale like 1/h^4 (~3e6 here); compare at f32 resolution
-    # relative to the field's own magnitude.
-    np.testing.assert_allclose(np.asarray(fused(u, 3e-3), np.float64), ref,
+    np.testing.assert_allclose(np.asarray(rhs(u), np.float64), ref,
                                rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_3d_grads_match_oracle_native_diff():
+    """State and kappa grads of the plain-XLA 3D macro == the FFT
+    oracle's (both natively differentiated)."""
+    rng = np.random.default_rng(9)
+    B, N = 2, 8
+    u = jnp.asarray(0.5 + 0.05 * rng.standard_normal((B, N, N, N)),
+                    jnp.float32)
+    h = 1.0 / N
+    kap = jnp.asarray([2e-3, 6e-3])
+    macro = make_ch3d_mobility_cas_macro(MU, D, N, N, N, h, h, h,
+                                         1.0, 1e-6, 4,
+                                         mats_dtype=jnp.float32)
+    ref = ch3d_mobility_macro_reference(MU, D, h, h, h, 1.0, 1e-6, 4)
+    gu_m, gk_m = jax.grad(lambda a, k: jnp.sum(macro(a, k) ** 2),
+                          argnums=(0, 1))(u, kap)
+    gu_r, gk_r = jax.grad(lambda a, k: jnp.sum(ref(a, k) ** 2),
+                          argnums=(0, 1))(u, kap)
+    np.testing.assert_allclose(np.asarray(gu_m), np.asarray(gu_r),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(gk_m), np.asarray(gk_r),
+                               rtol=1e-4, atol=1e-8)

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.ops.dft import make_dense_spectral_solve
-from pde_opt_tpu.ops.steppers import SemiImplicitDenseSolve, SemiImplicitFourierSpectral
+import pde_opt_jax as p
+from pde_opt_jax.ops.dft import make_dense_spectral_solve
+from pde_opt_jax.ops.steppers import SemiImplicitDenseSolve, SemiImplicitFourierSpectral
 
 N = 32
 L = 0.01 * N

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import pde_opt_tpu as p
-from pde_opt_tpu.envs import AdvectionDiffusionEnv, PDEEnv, VectorPDEEnv
+import pde_opt_jax as p
+from pde_opt_jax.envs import AdvectionDiffusionEnv, PDEEnv, VectorPDEEnv
 
 
 def _ch_env(num_envs=8, end_time=0.05, step_dt=0.01, auto_reset=True):
@@ -244,7 +244,7 @@ def test_divergence_detection_and_reset():
 
 def test_flagship_preset_long_rollout_stays_finite():
     """The bench preset must be numerically stable under random actions."""
-    from pde_opt_tpu.envs import make_cahn_hilliard_control_env
+    from pde_opt_jax.envs import make_cahn_hilliard_control_env
 
     env = make_cahn_hilliard_control_env(
         num_envs=8, grid_size=32, substeps=10, end_time=10.0

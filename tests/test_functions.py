@@ -1,7 +1,7 @@
 """Learnable-function modules vs independent numpy references.
 
 Same oracle strategy as the reference (``tests/test_functions.py:22-61``),
-plus pytree/batching checks the TPU design requires.
+plus pytree/batching checks the batched design requires.
 """
 
 import jax
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from numpy.polynomial.legendre import legval as np_legval
 
-from pde_opt_tpu.models.functions import (
+from pde_opt_jax.models.functions import (
     ChemicalPotentialLegendrePolynomials,
     DiffusionLegendrePolynomials,
     LegendrePolynomialExpansion,
@@ -87,7 +87,7 @@ def test_legendre_polynomials_hardcoded_equivalent():
 def test_legval_rejects_short_params_at_trace_time():
     # jnp clamps out-of-bounds element indices, so a short params vector
     # would otherwise silently reuse its last coefficient.
-    from pde_opt_tpu.models.functions.legendre import legval
+    from pde_opt_jax.models.functions.legendre import legval
 
     with pytest.raises(ValueError, match="at least max_degree"):
         legval(jnp.array([1.0, 2.0]), jnp.linspace(-1, 1, 8), max_degree=4)

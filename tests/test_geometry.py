@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.geometry import Shape
+import pde_opt_jax as p
+from pde_opt_jax.geometry import Shape
 
 N = 32
 L = 1.0

@@ -24,11 +24,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_opt_tpu.grid import Domain
-from pde_opt_tpu.models.cahn_hilliard import CahnHilliard2DPeriodic
-from pde_opt_tpu.ops.integrate import evolve
-from pde_opt_tpu.ops.steppers import SemiImplicitFourierSpectral, StrangSplitting
-from pde_opt_tpu.utils.compat import prepare_solver_params
+from pde_opt_jax.grid import Domain
+from pde_opt_jax.models.cahn_hilliard import CahnHilliard2DPeriodic
+from pde_opt_jax.ops.integrate import evolve
+from pde_opt_jax.ops.steppers import SemiImplicitFourierSpectral, StrangSplitting
+from pde_opt_jax.utils.compat import prepare_solver_params
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -108,8 +108,8 @@ def test_strang_imaginary_time_trajectory_matches_golden():
 def test_ac2d_tsit5_trajectory_matches_golden():
     """Allen-Cahn FD rhs + fixed-dt Tsit5 vs the numpy golden (the
     reference's Tsit5 Allen-Cahn path, tests/test_solvers.py:81)."""
-    from pde_opt_tpu.models.allen_cahn import AllenCahn2DPeriodic
-    from pde_opt_tpu.ops.steppers import Tsit5
+    from pde_opt_jax.models.allen_cahn import AllenCahn2DPeriodic
+    from pde_opt_jax.ops.steppers import Tsit5
 
     z = np.load(os.path.join(GOLDENS, "ac2d_tsit5_fd.npz"))
     N, dx = int(z["N"]), float(z["dx"])
@@ -133,10 +133,10 @@ def test_bv_constant_current_trajectory_and_voltage_match_golden():
     """Galvanostatic Butler-Volmer Allen-Cahn (the closed-form constant-
     current closure + get_voltage, reference allen_cahn.py:213-281) vs the
     numpy golden, field AND voltage trace, classical RK4."""
-    from pde_opt_tpu.models.allen_cahn import (
+    from pde_opt_jax.models.allen_cahn import (
         AllenCahn2DPeriodicButlerVolmerConstantCurrent,
     )
-    from pde_opt_tpu.ops.steppers import RK4
+    from pde_opt_jax.ops.steppers import RK4
 
     z = np.load(os.path.join(GOLDENS, "bv_cc_rk4.npz"))
     N, dx = int(z["N"]), float(z["dx"])
@@ -170,8 +170,8 @@ def test_gpe_rot_directional_split_trajectory_matches_golden():
     """Rotating-frame GPE (reference gross_pitaevskii.py:84-131 A/B terms)
     integrated by DirectionalSplitting in imaginary time vs the numpy
     golden, at every save point."""
-    from pde_opt_tpu.models.gross_pitaevskii import GPE2DTSRot
-    from pde_opt_tpu.ops.steppers import DirectionalSplitting
+    from pde_opt_jax.models.gross_pitaevskii import GPE2DTSRot
+    from pde_opt_jax.ops.steppers import DirectionalSplitting
 
     z = np.load(os.path.join(GOLDENS, "gpe_rot_dirsplit.npz"))
     N, L = int(z["N"]), float(z["L"])

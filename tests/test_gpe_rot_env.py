@@ -1,9 +1,9 @@
 """Rotating-GPE stirring control env: fused/FFT parity + RL learning gate.
 
-Completes the VERDICT r3 item: the reference can wrap ANY equation —
+The reference can wrap ANY equation —
 including ``GPE2DTSRot`` — in its env (``pde_env.py:43-138``) but ships no
 solver for the rotating frame; this preset is the 6th env family, driven
-by :class:`~pde_opt_tpu.ops.steppers.FusedRotatingSplitting`.
+by :class:`~pde_opt_jax.ops.steppers.FusedRotatingSplitting`.
 
 Reward calibration at 16 envs / 32² / T=8 / action_gain=2.5 (fixed
 seeds, x64): always-stir ≈ +0.198, random ≈ +0.043, trained PPO ≥ +0.147
@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pde_opt_tpu.envs import make_gpe_rot_control_env
+from pde_opt_jax.envs import make_gpe_rot_control_env
 
 B, N, T = 16, 32, 8
 MARGIN = 0.05      # random ≈ 0.043, always-stir ≈ 0.198
@@ -71,8 +71,8 @@ def test_stirring_is_the_good_policy():
 def test_vortex_census_rewards_vortices():
     """A seeded vortex state scores higher than the vortex-free reset
     through the census term (not just L_z shaping)."""
-    from pde_opt_tpu.utils import initialize_Psi
-    from pde_opt_tpu.utils.rl import vortex_winding
+    from pde_opt_jax.utils import initialize_Psi
+    from pde_opt_jax.utils.rl import vortex_winding
 
     env = make_gpe_rot_control_env(
         num_envs=B, grid_size=N, substeps=4, end_time=0.32, step_dt=0.04,
@@ -92,7 +92,7 @@ def test_vortex_census_rewards_vortices():
 
 @pytest.mark.slow
 def test_ppo_learns_to_stir():
-    from pde_opt_tpu.rl import ActorCriticConv, PPOConfig, ppo_train
+    from pde_opt_jax.rl import ActorCriticConv, PPOConfig, ppo_train
 
     env = _env()
     net = ActorCriticConv(action_dim=1, channels=(4,), features=16,

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.ops.gpe_rot_fast import make_rot_adi_macro
-from pde_opt_tpu.ops.steppers import DirectionalSplitting
-from pde_opt_tpu.utils import density, initialize_Psi
+import pde_opt_jax as p
+from pde_opt_jax.ops.gpe_rot_fast import make_rot_adi_macro
+from pde_opt_jax.ops.steppers import DirectionalSplitting
+from pde_opt_jax.utils import density, initialize_Psi
 
 N = 32
 

@@ -6,14 +6,14 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
-from pde_opt_tpu.ops import stencils as st
-from pde_opt_tpu.parallel.halo import (
+from pde_opt_jax.ops import stencils as st
+from pde_opt_jax.parallel.halo import (
     distributed_fft2,
     distributed_ifft2,
     halo_pad_rows,
     sharded_lap_2nd_2d,
 )
-from pde_opt_tpu.parallel.mesh import shard_map
+from pde_opt_jax.parallel.mesh import shard_map
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs multi-device (virtual) platform"
@@ -111,8 +111,8 @@ def test_distributed_fft_roundtrip_and_spectral_multiply():
 
 
 def test_sharded_sif_ch_macro_matches_single_device():
-    from pde_opt_tpu.ops.fused_spectral import ch_sif_macro_reference
-    from pde_opt_tpu.parallel.halo import make_sharded_sif_ch_macro
+    from pde_opt_jax.ops.spectral_reference import ch_sif_macro_reference
+    from pde_opt_jax.parallel.halo import make_sharded_sif_ch_macro
 
     mesh = _mesh()
     P_dev = len(jax.devices())
@@ -143,7 +143,7 @@ def test_sharded_laplacian_3d_matches_global():
     n_dev = len(jax.devices())
     N, M, K = 2 * n_dev, 12, 8
     u = jax.random.normal(jax.random.PRNGKey(11), (N, M, K))
-    from pde_opt_tpu.parallel.halo import sharded_lap_2nd_3d
+    from pde_opt_jax.parallel.halo import sharded_lap_2nd_3d
 
     f = jax.jit(shard_map(
         lambda ul: sharded_lap_2nd_3d(ul, 0.1, 0.2, 0.3, "space"),
@@ -160,7 +160,7 @@ def test_distributed_fft3_roundtrip_and_matches_global():
     n_dev = len(jax.devices())
     N, M, K = 2 * n_dev, 2 * n_dev, 4
     u = jax.random.normal(jax.random.PRNGKey(12), (N, M, K))
-    from pde_opt_tpu.parallel.halo import distributed_fft3, distributed_ifft3
+    from pde_opt_jax.parallel.halo import distributed_fft3, distributed_ifft3
 
     fwd = jax.jit(shard_map(
         lambda ul: distributed_fft3(ul.astype(jnp.complex128), "space"),
@@ -187,7 +187,7 @@ def test_sharded_sif_ch3d_macro_matches_single_device():
     n_dev = len(jax.devices())
     N = M = 2 * n_dev
     K = 8
-    from pde_opt_tpu.parallel.halo import make_sharded_sif_ch3d_macro
+    from pde_opt_jax.parallel.halo import make_sharded_sif_ch3d_macro
 
     mu = lambda c: c**3 - c
     hx = hy = hz = 0.01

@@ -12,13 +12,13 @@ import numpy as np
 import pytest
 import sympy as sp
 
-from pde_opt_tpu.models.allen_cahn import AllenCahn2DPeriodic
-from pde_opt_tpu.models.cahn_hilliard import CahnHilliard2DPeriodic
-from pde_opt_tpu.models.symbolic import (
+from pde_opt_jax.models.allen_cahn import AllenCahn2DPeriodic
+from pde_opt_jax.models.cahn_hilliard import CahnHilliard2DPeriodic
+from pde_opt_jax.models.symbolic import (
     SymbolicAllenCahn2DPeriodic,
     SymbolicCahnHilliard2DPeriodic,
 )
-from pde_opt_tpu.utils.testing import check_convergence
+from pde_opt_jax.utils.testing import check_convergence
 
 X, Y, T = sp.symbols("x y t", real=True)
 U_STAR = sp.sin(2 * X) * sp.cos(3 * Y) * sp.exp(-sp.Rational(1, 2) * T)

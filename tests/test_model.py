@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.models.functions import DiffusionLegendrePolynomials
+import pde_opt_jax as p
+from pde_opt_jax.models.functions import DiffusionLegendrePolynomials
 
 N = 32
 L = 0.01 * N
@@ -156,7 +156,7 @@ def test_optimize_objective_control():
 
 
 def test_train_least_squares_jitted_recovers_kappa():
-    """The TPU-resident (single while_loop) LM matches the host-loop fit."""
+    """The device-resident (single while_loop) LM matches the host-loop fit."""
     domain = _domain()
     model = _model(domain)
     data = _make_data(model, MU, DCONST)
@@ -176,7 +176,7 @@ def test_train_least_squares_jitted_recovers_kappa():
 
 
 def test_lm_jitted_reports_stall_as_not_converged():
-    from pde_opt_tpu.optim import least_squares_lm, least_squares_lm_jitted
+    from pde_opt_jax.optim import least_squares_lm, least_squares_lm_jitted
 
     # Residual with a floor at a nonzero value and a cliff to NaN for any
     # step away from theta0: no damping level can improve -> stall.

@@ -9,7 +9,7 @@ making the docs part of the test suite.
 
 The full suite is ~minutes of CPU; by default this module executes a
 representative fast subset and verifies the *generator* is in sync with the
-committed notebooks for all of them.  Set ``PDE_OPT_TPU_NB_ALL=1`` to
+committed notebooks for all of them.  Set ``PDE_OPT_NB_ALL=1`` to
 execute every notebook (CI does).
 """
 
@@ -38,7 +38,7 @@ FAST = [
     "15_fleets_sharding_checkpoint",
     "16_spatial_decomposition",
 ]
-RUN = ALL if os.environ.get("PDE_OPT_TPU_NB_ALL") else FAST
+RUN = ALL if os.environ.get("PDE_OPT_NB_ALL") else FAST
 
 
 def test_all_notebooks_committed_and_in_sync():

@@ -9,17 +9,17 @@ import jax.numpy as jnp
 import numpy as np
 import sympy as sp
 
-from pde_opt_tpu.models import (
+from pde_opt_jax.models import (
     AdvectionDiffusion2D,
     AllenCahn2DPeriodic,
     CahnHilliard2DPeriodic,
 )
-from pde_opt_tpu.models.symbolic import (
+from pde_opt_jax.models.symbolic import (
     SymbolicAdvectionDiffusion2D,
     SymbolicAllenCahn2DPeriodic,
     SymbolicCahnHilliard2DPeriodic,
 )
-from pde_opt_tpu.utils.testing import check_convergence, fit_order
+from pde_opt_jax.utils.testing import check_convergence, fit_order
 
 X, Y, T = sp.symbols("x y t", real=True)
 U_STAR = sp.sin(2 * X) * sp.cos(3 * Y) * sp.exp(-0.7 * T)

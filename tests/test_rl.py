@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.envs import make_cahn_hilliard_control_env
-from pde_opt_tpu.envs.vector_env import VectorPDEEnv
-from pde_opt_tpu.rl import (
+import pde_opt_jax as p
+from pde_opt_jax.envs import make_cahn_hilliard_control_env
+from pde_opt_jax.envs.vector_env import VectorPDEEnv
+from pde_opt_jax.rl import (
     ActorCriticConv,
     DQNConfig,
     PPOConfig,
@@ -17,7 +17,7 @@ from pde_opt_tpu.rl import (
     init_replay,
     ppo_train,
 )
-from pde_opt_tpu.rl.dqn import _insert_batch
+from pde_opt_jax.rl.dqn import _insert_batch
 
 
 def _gae_numpy(rewards, values, dones, last_value, gamma, lam):
@@ -133,7 +133,7 @@ def test_dqn_trains_on_discrete_env():
 
 
 def test_ddpg_trains_on_continuous_env():
-    from pde_opt_tpu.rl import (
+    from pde_opt_jax.rl import (
         DDPGConfig,
         DeterministicActorConv,
         QCriticConv,
@@ -184,7 +184,7 @@ def test_replay_ring_wraparound():
 
 
 def test_ppo_data_parallel_over_mesh():
-    from pde_opt_tpu.parallel import make_mesh
+    from pde_opt_jax.parallel import make_mesh
 
     if len(jax.devices()) < 2:
         import pytest

@@ -1,4 +1,4 @@
-"""RL learners must LEARN, not merely run (VERDICT r2 §weak-1).
+"""RL learners must LEARN, not merely run.
 
 Each of PPO / DQN / DDPG trains on a small controllable Cahn-Hilliard
 κ-control fleet where the spinodal instability is gated by the control:
@@ -22,8 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.envs.vector_env import VectorPDEEnv
+import pde_opt_jax as p
+from pde_opt_jax.envs.vector_env import VectorPDEEnv
 
 B, N, T = 32, 16, 8
 MARGIN = 3e-3        # random ≈ −8e-3; untrained(init) ≈ −0.24
@@ -84,7 +84,7 @@ def _random_continuous(env):
 
 @pytest.mark.slow
 def test_ppo_learns_kappa_control():
-    from pde_opt_tpu.rl import ActorCriticConv, PPOConfig, ppo_train
+    from pde_opt_jax.rl import ActorCriticConv, PPOConfig, ppo_train
 
     env = _make_env()
     net = ActorCriticConv(action_dim=1, channels=(4,), features=16,
@@ -115,7 +115,7 @@ def test_ppo_zero_gradient_counterfactual_fails_the_margin():
     """lr = 0 (the no-gradient mutation): the SAME training protocol must
     NOT pass the learning assertion — proves the margin is sensitive to
     gradients actually flowing, not to liveness/param-noise."""
-    from pde_opt_tpu.rl import ActorCriticConv, PPOConfig, ppo_train
+    from pde_opt_jax.rl import ActorCriticConv, PPOConfig, ppo_train
 
     env = _make_env()
     net = ActorCriticConv(action_dim=1, channels=(4,), features=16,
@@ -136,7 +136,7 @@ def test_ppo_zero_gradient_counterfactual_fails_the_margin():
 
 @pytest.mark.slow
 def test_dqn_learns_kappa_control():
-    from pde_opt_tpu.rl import DQNConfig, QNetConv, dqn_train
+    from pde_opt_jax.rl import DQNConfig, QNetConv, dqn_train
 
     env = _make_env(discrete=True)
     qnet = QNetConv(num_actions=3, channels=(4,), features=16,
@@ -159,7 +159,7 @@ def test_dqn_learns_kappa_control():
 
 @pytest.mark.slow
 def test_ddpg_learns_kappa_control():
-    from pde_opt_tpu.rl import (
+    from pde_opt_jax.rl import (
         DDPGConfig,
         DeterministicActorConv,
         QCriticConv,
@@ -188,10 +188,10 @@ def test_ddpg_learns_kappa_control():
 
 @pytest.mark.slow
 def test_ppo_mlp_torso_learns_kappa_control():
-    """The TPU-native flattened-MLP policy (full-depth matmul torso, the
+    """The flattened-MLP policy (dense matmul torso, the
     PPO bench's fast learner) must clear the same learning gate as the
     conv policy."""
-    from pde_opt_tpu.rl import ActorCriticMLP, PPOConfig, ppo_train
+    from pde_opt_jax.rl import ActorCriticMLP, PPOConfig, ppo_train
 
     env = _make_env()
     net = ActorCriticMLP(action_dim=1, in_features=N * N, widths=(64,),
@@ -213,11 +213,11 @@ def test_ppo_mlp_torso_learns_kappa_control():
 
 @pytest.mark.slow
 def test_ppo_chunked_shuffle_learns():
-    """The chunked minibatch shuffle (the TPU gather fix: permute
+    """The chunked minibatch shuffle (permute
     contiguous same-timestep env blocks instead of samples) must clear
     the same learning gate — proves decorrelation is preserved.  At this
     scale N=256, minibatches=2, mb=128, chunk=64 => chunking ACTIVE."""
-    from pde_opt_tpu.rl import ActorCriticMLP, PPOConfig, ppo_train
+    from pde_opt_jax.rl import ActorCriticMLP, PPOConfig, ppo_train
 
     env = _make_env()
     net = ActorCriticMLP(action_dim=1, in_features=N * N, widths=(64,),

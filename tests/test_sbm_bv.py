@@ -15,13 +15,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pde_opt_tpu as p
-from pde_opt_tpu.envs import make_sbm_butler_volmer_control_env
-from pde_opt_tpu.models.allen_cahn import (
+import pde_opt_jax as p
+from pde_opt_jax.envs import make_sbm_butler_volmer_control_env
+from pde_opt_jax.models.allen_cahn import (
     AllenCahn2DSmoothedBoundaryButlerVolmerConstantCurrent,
 )
-from pde_opt_tpu.ops.integrate import evolve
-from pde_opt_tpu.ops.steppers import RK4
+from pde_opt_jax.ops.integrate import evolve
+from pde_opt_jax.ops.steppers import RK4
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "sbm_bv_cc_rk4.npz")

@@ -4,7 +4,7 @@ Same three analytic oracles as the reference (``tests/test_solvers.py``):
 1D Cahn-Hilliard interface → tanh profile (:21-61), 1D Allen-Cahn interface
 via adaptive Tsit5 (:64-104), 2D GPE imaginary-time ground state →
 Thomas-Fermi density (:107-205) — each through both the raw integrate path
-and the ``PDEModel.solve`` API (:208-392), plus TPU-design extras: batched
+and the ``PDEModel.solve`` API (:208-392), plus design extras: batched
 lockstep consistency and the implicit stepper.
 """
 
@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import pde_opt_tpu as p
-from pde_opt_tpu.ops.integrate import PIDController
-from pde_opt_tpu.utils import density, initialize_Psi
+import pde_opt_jax as p
+from pde_opt_jax.ops.integrate import PIDController
+from pde_opt_jax.utils import density, initialize_Psi
 
 KAPPA = 0.002
 
@@ -154,7 +154,7 @@ def test_1d_allen_cahn_pde_model_adaptive():
     _check_interface(sol[-1], domain, Nx)
 
 
-# ---- TPU-design specifics ----------------------------------------------
+# ---- design specifics --------------------------------------------------
 
 
 def test_batched_rollout_matches_single():
@@ -217,7 +217,7 @@ def test_implicit_euler_stiff_diffusion():
     N = 64
     domain = p.Domain((N, 1), ((-1, 1), (-0.01, 0.01)), dtype=jnp.float64)
     hx = domain.dx[0]
-    from pde_opt_tpu.ops import stencils as st
+    from pde_opt_jax.ops import stencils as st
 
     rhs = lambda y, t: st.grad2_c(y, hx, -2)
     x = domain.axes()[0]
@@ -239,8 +239,8 @@ def test_integrate_adaptive_batched_per_instance_error_control():
     import jax.numpy as jnp
     import numpy as np
 
-    from pde_opt_tpu.ops.integrate import integrate_adaptive
-    from pde_opt_tpu.ops.steppers import Heun
+    from pde_opt_jax.ops.integrate import integrate_adaptive
+    from pde_opt_jax.ops.steppers import Heun
 
     # Two exponential decays with very different stiffness.
     lam = jnp.array([-1.0, -40.0])
@@ -261,11 +261,11 @@ def test_integrate_adaptive_batched_per_instance_error_control():
 
 
 def test_implicit_euler_convergence_diagnostics():
-    """Residual-based Newton (VERDICT r3 weak-7): a well-posed stiff solve
+    """Residual-based Newton: a well-posed stiff solve
     reports converged=True in few iterations; an absurd dt reports
     converged=False instead of silently returning garbage; the masked
     differentiable variant matches the while_loop variant."""
-    from pde_opt_tpu.ops.steppers import ImplicitEuler
+    from pde_opt_jax.ops.steppers import ImplicitEuler
 
     lam = 50.0
     rhs = lambda y, t: -lam * y

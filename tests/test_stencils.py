@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_opt_tpu.ops import stencils as st
+from pde_opt_jax.ops import stencils as st
 
 
 @pytest.fixture

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_opt_tpu.utils import checkpoint as ckpt
-from pde_opt_tpu.utils import metrics
-from pde_opt_tpu.utils import ptree
-from pde_opt_tpu.utils.modules import module
-from pde_opt_tpu.models.functions import DiffusionLegendrePolynomials
+from pde_opt_jax.utils import checkpoint as ckpt
+from pde_opt_jax.utils import metrics
+from pde_opt_jax.utils import ptree
+from pde_opt_jax.utils.modules import module
+from pde_opt_jax.models.functions import DiffusionLegendrePolynomials
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -103,7 +103,7 @@ def test_vortex_winding_analytic_charges():
     nothing (amplitude gating suppresses the vacuum tail)."""
     import numpy as np
     import jax.numpy as jnp
-    from pde_opt_tpu.utils.rl import detect_vortices, vortex_winding
+    from pde_opt_jax.utils.rl import detect_vortices, vortex_winding
 
     N = 32
     x = np.arange(N) - (N - 1) / 2
